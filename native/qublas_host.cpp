@@ -1,7 +1,7 @@
 // Native host engine: exact fixed-point kernels for <=64-bit storage formats.
 //
-// This is the C++ runtime component of qublas_tpu: the TPU compute path is
-// JAX/Pallas, but host-side work — exact double<->fixed conversion, golden
+// This is the C++ runtime component of qublas_tpu: the device compute path
+// is JAX/Pallas, but host-side work — exact double<->fixed conversion, golden
 // elementwise ops, BitStream pack/unpack — runs here at C speed for formats
 // whose intermediates fit 128 bits (the reference's own tests go to 200-bit
 // formats; those stay on the exact Python-int path).

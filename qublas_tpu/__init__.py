@@ -1,9 +1,9 @@
-"""qublas_tpu — a TPU-native fixed-point quantized linear-algebra engine.
+"""qublas_tpu — a fixed-point quantized linear-algebra engine on JAX.
 
 A from-scratch JAX/XLA/Pallas re-design with the capabilities of the
 reference QuBLAS C++ simulator (bit-exact fixed-point arithmetic for
 ASIC/FPGA behavioral modeling), extended with what the reference lacks:
-batched tensor ops, MXU integer GEMM kernels, LUT kernels, and multi-chip /
+batched tensor ops, integer-matmul GEMM paths, LUT kernels, and multi-device /
 multi-host sharding over a `jax.sharding.Mesh`.
 """
 

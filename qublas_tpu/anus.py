@@ -1,6 +1,6 @@
 """ANUS — Advanced Nonlinear Universal Subprograms.
 
-TPU-native re-design of the reference's ``ANUS`` namespace ("the operations
+Device re-design of the reference's ``ANUS`` namespace ("the operations
 like lookup table, linear/polynomial fitting, etc. used to implement the
 non-linear operation in asic", reference ``include/QuBLAS.h:4829-4897``)
 plus the readme-documented LUTs (``readme.md:66-78`` — absent from the header
@@ -15,11 +15,12 @@ at this snapshot; see SURVEY.md §0/§2.15).
   the input's format (``decltype(x){...}`` converting ctor,
   QuBLAS.h:4854-4884).  The double compare is resolved exactly on integer
   raws via a host-side rational threshold, so the device path is a chain of
-  integer selects — no floats touch the TPU.
+  integer selects — no floats touch the device.
 * :func:`qtable` / :class:`QTable` — exact LUTs: every input bit pattern maps
   through a Python-double function and requantizes into the output format —
   precisely what an ASIC ROM does.  Tables are built host-side with the
-  exact conversion pipeline and applied on device as a VMEM-resident gather.
+  exact conversion pipeline and applied on device as a fused select tree
+  (or a gather for large tables).
   Predefined functions: :data:`rsqrt_func`, :data:`reciprocal_func`,
   :data:`sqrt_func` (``readme.md:66-75``); non-finite outputs store 0,
   matching ``loadFromDouble``'s non-finite handling (QuBLAS.h:451-455).
@@ -222,7 +223,7 @@ def sqrt_func(v: float) -> float:
     return math.sqrt(v) if v >= 0 else math.nan
 
 
-MAX_TABLE_BITS = 20  # 1M int32 entries = 4 MB — fits VMEM-adjacent budgets
+MAX_TABLE_BITS = 20  # 1M int32 entries = 4 MB
 
 
 class QTable:
@@ -288,20 +289,18 @@ class QTable:
         return h
 
     # Beyond this many entries the balanced select tree's trace gets large;
-    # gather (slow on TPU but O(1) trace) takes over.
+    # gather (O(1) trace) takes over.
     SELECT_TREE_MAX = 1 << 10
 
     def _select_tree(self, idx):
         """Balanced binary select tree over the table: a chain of jnp.where
-        with constant leaves.  On TPU this fuses into the surrounding
-        epilogue and runs ~45x faster than an XLA gather (measured v5e, 256
-        entries over 16M elements — small-table gathers lower to
-        effectively serial code).
+        with constant leaves.  It fuses into the surrounding elementwise
+        epilogue, where a small-table gather would be a separate kernel.
 
         When every entry fits one byte (or two), four (two) entries pack
         into each int32 leaf, quartering (halving) the select count: the
         tree walks ``idx >> 2`` over packed words, then a per-element
-        variable shift + mask + sign-extend extracts the entry — ~66 VPU
+        variable shift + mask + sign-extend extracts the entry — ~66 integer
         ops per element for a 256-entry ROM instead of 255."""
         import jax.numpy as jnp
 
@@ -370,9 +369,8 @@ class QTable:
 
         idx = x.data.astype(jnp.int32) & jnp.int32(self._mask)
         if len(self._raws) <= self.SELECT_TREE_MAX:
-            # backend-agnostic: fuses into epilogues on TPU (45-129x over
-            # XLA gather, measured) and traces fine under shard_map, where
-            # gather/take is unsupported
+            # backend-agnostic: fuses into epilogues and traces fine under
+            # shard_map, where gather/take is unsupported
             raw = self._select_tree(idx)
         else:
             raw = jnp.take(self.table_array(), idx, axis=0)

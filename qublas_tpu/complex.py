@@ -1,6 +1,6 @@
 """Complex fixed-point tensors and their quantized arithmetic.
 
-TPU-native re-design of the reference's ``Qcomplex`` (reference
+Device re-design of the reference's ``Qcomplex`` (reference
 ``include/QuBLAS.h:2500-2617``) and the complex algorithms
 (``QuBLAS.h:3374-3739``): a complex value is a pair of independently-typed
 fixed-point parts.  Here that is two :class:`~qublas_tpu.qtensor.QTensor`

@@ -53,7 +53,7 @@ def force_fast_off():
 
 
 # ---------------------------------------------------------------------------
-# MXU fast path: when every per-product step and both accumulation trees are
+# Integer-matmul fast path: when every per-product step and both accumulation trees are
 # provably lossless, the complex GEMM collapses to 4 (basic) or 3 (TF)
 # integer matmuls plus exact shift/combine epilogues.
 # ---------------------------------------------------------------------------
@@ -93,11 +93,10 @@ def _tf_int8_distributed(a, b, k, fal1, fal2, w1, w2, w3, fin_r, fin_i,
                          fA, fB, fC):
     """Lower TF's three matmuls to the FOUR elementary int8 matmuls.
 
-    TF's multiplies take 9-bit operand SUMS (a_r+a_i etc.), which int8 MXU
-    passes cannot represent — an int16 matmul costs ~4x an int8 one
-    (device-trace: 0.254 vs 0.060 ms per 3-matmul group at 2048^3).  But
-    under the fast path's losslessness proof every intermediate requantize
-    is an exact shift, so the dots DISTRIBUTE:
+    TF's multiplies take 9-bit operand SUMS (a_r+a_i etc.), which int8
+    matmuls cannot represent, and integer tensor cores take int8 operands
+    only.  But under the fast path's losslessness proof every intermediate
+    requantize is an exact shift, so the dots DISTRIBUTE:
 
         dA = S1*br = (ar<<p1 + ai<<p2)*br = (ar*br)<<p1 + (ai*br)<<p2
         dB = ai*S2 =                        (ai*br)<<p3 + (ai*bi)<<p4
@@ -105,12 +104,9 @@ def _tf_int8_distributed(a, b, k, fal1, fal2, w1, w2, w3, fin_r, fin_i,
 
     i.e. 4 elementary int8 matmuls (the Basic algorithm's products) +
     exact int32 shift/add recombination — bit-identical to the three-sum
-    form by the proof, and ~2.1x faster measured (round-5 experiment
-    tools/exp_cgemm_batch.py first bounded the alternatives: batching the
-    3 int16 matmuls into one dot_general measured 0.63x — a negative
-    result — which motivated this lowering instead).  Returns (dA, dB,
-    dC) or None when operands are not int8 lanes / any int32 bound fails
-    (caller falls back to the 3-matmul int16 form).
+    form by the proof.  Returns (dA, dB, dC) or None when operands are not
+    int8 lanes / any int32 bound fails (caller falls back to the 3-matmul
+    int16 form).
     """
     import jax.numpy as jnp
 
@@ -162,15 +158,15 @@ def _fast_cgemul(a, b, orf, oif, algo, r_layers, i_layers, mul_tags,
     ``dot_reduce`` (optional) is applied to each integer dot product before
     the combine/epilogue — the K-sharding hook: with operands holding a
     K-slice and ``dot_reduce=lambda d: jax.lax.psum(d, "tp")`` the partial
-    int32 dots sum over ICI, which is bit-exact because the proof (run
+    int32 dots sum over the mesh, which is bit-exact because the proof (run
     against ``k_total``, the *global* contraction length) guarantees
     lossless integer accumulation in any order.
 
     When the pipeline is proven lossless but outgrows int32 lanes — wide
     dots, pair/limb operands, pair/limb output formats — the dots compute
-    in the stacked-limb domain instead (balanced-digit MXU matmuls,
+    in the stacked-limb domain instead (balanced-digit int8 matmuls,
     :func:`~qublas_tpu.ops.limbdot.limb_dot_2d`) with exact limb
-    shift/combine epilogues: the complex side of the round-4 wide-dot
+    shift/combine epilogues: the complex side of the wide-dot
     capability.  ``limb_dot_reduce`` is that path's K-sharding hook (a
     carry-correct limb psum); ``cap_mn`` overrides the output dims used in
     the limb envelope caps so a 1×1 sharding probe decides identically to
@@ -303,6 +299,8 @@ def _fast_cgemul(a, b, orf, oif, algo, r_layers, i_layers, mul_tags,
                 return None
             dd = _tf_int8_distributed(a, b, k, fal1, fal2, w1, w2, w3,
                                       fin_r, fin_i, fA, fB, fC)
+            if info is not None:
+                info["tf"] = "int8" if dd is not None else "sums"
             if dd is not None:
                 dA, dB, dC = dd
             else:
@@ -360,7 +358,7 @@ def _fast_cgemul(a, b, orf, oif, algo, r_layers, i_layers, mul_tags,
 
     def limb_path():
         """Stacked-limb compute for proof-lossless configs beyond int32:
-        each integer dot runs as a balanced-digit MXU matmul recombined
+        each integer dot runs as a balanced-digit int8 matmul recombined
         into ``Kw`` uint32 limbs (:func:`~qublas_tpu.ops.limbdot.limb_dot_2d`),
         the shift/combine epilogue is exact limb arithmetic, and ONE limb
         requantize per part lands the result in any device storage.
@@ -546,7 +544,7 @@ def cgemul(a, b, out_fmt, algo: str = "basic", add_formats=(),
 
     # batched fast path: the lossless proof is shape-independent, so probe
     # it on one batch element's 1-row x 1-col slice, then vmap the 2-D
-    # fast path over the flattened batch (3-4 MXU matmuls per element
+    # fast path over the flattened batch (3-4 integer matmuls per element
     # instead of the layered [.., m, k, n] program)
     if (not _FAST_OFF and a.real.ndim == b.real.ndim > 2
             and a.real.shape[:-2] == b.real.shape[:-2]

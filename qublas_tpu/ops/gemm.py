@@ -8,20 +8,18 @@ accumulates through the Qreduce *vector-path* tree with per-layer
 (a converting assignment).  The semantic oracle is
 :func:`qublas_tpu.hostops.qgemul`.
 
-TPU-native design — two device strategies chosen by a static exactness
-proof (trace time, free at runtime):
+Device design — two strategies chosen by a static exactness proof (trace
+time, free at runtime):
 
-* **MXU fast path.**  If every step of the product-quantize + tree-accumulate
+* **Integer-matmul fast path.**  If every step of the product-quantize + tree-accumulate
   pipeline is provably lossless (no rounding: fractional precision never
   drops; no saturation: exact interval arithmetic keeps every intermediate
   inside its format's identity range), then *any* association order yields
   identical bits, so the whole dot collapses to an integer
-  ``lax.dot_general`` with int32 MXU accumulation plus ONE fused
+  ``lax.dot_general`` with int32 accumulation plus ONE fused
   shift-round-saturate epilogue (``requantize_i32``).  This covers the
   headline INT8 config (BASELINE.json config 1) and every FullPrec-style
-  config — the ones that matter for throughput.  For large operands on TPU
-  the matmul runs as a Pallas kernel with the epilogue fused in VMEM
-  (:mod:`.pallas_gemm`).
+  config — the ones that matter for throughput.
 
 * **General tree path.**  When intermediate layers round or saturate, the
   result is association-order-sensitive; we replicate the exact balanced-tree
@@ -31,7 +29,7 @@ proof (trace time, free at runtime):
   (pair/limb) configs at scale use :func:`_stream_gemm_wide` instead — the
   same tree as a binary-carry stream of k-chunks, peak memory
   ``[.., m, chunk, n]``, which admits shapes whose full product tensor
-  cannot fit HBM.
+  cannot fit device memory.
 
 Formats too wide for device lanes fall back to the exact host golden model.
 """
@@ -69,7 +67,7 @@ _STREAM_GATE_OVERRIDE: Optional[int] = None
 
 @contextmanager
 def force_tiers_off(*tiers: str):
-    """Disable named fast-dispatch tiers ("limb": balanced-digit MXU dot;
+    """Disable named fast-dispatch tiers ("limb": balanced-digit int8 dot;
     "wide": pair-domain dot) within the context.  Trace-time static."""
     global _TIERS_OFF
     saved = _TIERS_OFF
@@ -105,7 +103,7 @@ def _identity_range(fmt: QFormat):
     64-aligned multiword — hostint.int_convert, verified by probe), so
     its identity range is the signed word interval, not unbounded: a
     product whose upshifted value exceeds the word wraps per element, and
-    an MXU dot of the unwrapped values would diverge from the oracle
+    an integer dot of the unwrapped values would diverge from the oracle
     (caught by differential fuzz)."""
     if fmt.overflow_mode == OverflowMode.WRP_TCPL_SAT:
         w = fmt.storage_bits
@@ -137,7 +135,7 @@ def _lossless_requant(iv: Interval, from_frac: int, fmt: QFormat):
 
 @dataclass(frozen=True)
 class ExactPlan:
-    """Proof artifact: the dot is lossless, so int32 MXU accumulation at the
+    """Proof artifact: the dot is lossless, so int32 accumulation at the
     product's fractional scale + one epilogue reproduces the tree bit-exactly."""
 
     prod_frac: int        # fa.frac + fb.frac — scale of the raw dot product
@@ -218,9 +216,10 @@ def qgemul(a: QTensor, b: QTensor, out_fmt: QFormat, mul_to=None,
     Readme-parity API (``readme.md:80-87``): ``mul_to`` ~ QgemulMulArgs,
     ``add_formats`` ~ QgemulAddArgs TypeList, ``transpose_a/b`` ~
     QgemulTransposedA/B.  Leading batch dimensions broadcast (an extension —
-    the reference has no batching).  ``use_pallas`` forces/disables the
-    Pallas MXU kernel on the fast path (default: auto — on for TPU-backed
-    arrays with tile-friendly shapes).
+    the reference has no batching).  ``use_pallas=False`` keeps the
+    order-sensitive tree off the hand-written GPU kernel
+    (:func:`~.tree_gemm.tree_gemm_tiled`) and on the portable scan; the
+    default allows the kernel whenever the default backend is the GPU.
 
     ``epilogue_lut`` fuses an ANUS ROM lookup into the GEMM epilogue
     (BASELINE.json config 4): a :class:`~qublas_tpu.anus.QTable` built for
@@ -251,16 +250,13 @@ def qgemul(a: QTensor, b: QTensor, out_fmt: QFormat, mul_to=None,
 
     plan = exact_plan(a.fmt, b.fmt, mul_fmt, add_formats, k)
     if plan is not None and _device_epilogue_ok(plan, out_fmt):
-        return _fast_gemm(a, b, out_fmt, plan, use_pallas)
+        return _fast_gemm(a, b, out_fmt, plan)
     if plan is not None:
         # proof-lossless but the dot outgrows int32.  Try the balanced-digit
-        # int8 MXU dot FIRST (round 4 reorder): device-trace measurements
-        # put it 28-672x faster than the pair-domain dot wherever both
-        # apply (512x2048x512: 13-bit lanes 12.9 Tprod/s vs 0.47; 28-bit
-        # lanes 4.7 Tprod/s vs 0.007 — the pair path's segment dots decay
-        # with operand width while digit matmuls ride the MXU).  Both are
-        # bit-exact by the losslessness proof, so order is purely a
-        # performance choice.
+        # int8 dot FIRST: its digit matmuls are int8 matmuls whatever the
+        # operand width, while the pair-domain dot's segment dots shrink
+        # with it.  Both are bit-exact by the losslessness proof, so the
+        # order is purely a performance choice.
         res = None if "limb" in _TIERS_OFF else \
             _fast_gemm_limb(a, b, out_fmt, plan)
         if res is not None:
@@ -273,15 +269,15 @@ def qgemul(a: QTensor, b: QTensor, out_fmt: QFormat, mul_to=None,
             return res
 
     # general path: order-sensitive quantized accumulation.  Prefer the
-    # streaming binary-carry evaluation (no [m, k, n] intermediate); the
-    # Pallas variant keeps the slot stack in VMEM on TPU.
+    # streaming binary-carry evaluation (no [m, k, n] intermediate); on the
+    # GPU the tiled kernel keeps each output tile's slot stack in registers.
     from . import tree_gemm
 
     if not (a.is_pair or b.is_pair or a.is_limb or b.is_limb):
         # prefix-lossless hybrid: when the product quantize and the first
         # L >= 3 tree layers are provably exact, 2^L-element partial dots
-        # run on the MXU as block matmuls and only the lossy tail folds on
-        # the VPU — bit-identical to the full tree by the proof
+        # run as block integer matmuls and only the lossy tail folds
+        # elementwise — bit-identical to the full tree by the proof
         hplan = tree_gemm.plan_hybrid(a.fmt, b.fmt, mul_fmt, add_formats,
                                       k, out_fmt)
         if hplan is not None:
@@ -297,19 +293,17 @@ def qgemul(a: QTensor, b: QTensor, out_fmt: QFormat, mul_to=None,
         import jax
 
         m, n = a.shape[-2], b.shape[-1]
-        blocked = (jax.default_backend() == "tpu"
-                   and use_pallas is not False
-                   and tree_gemm.blocked_ok(m, n, k))
-        if blocked and a.ndim == 2 and b.ndim == 2:
-            raw = tree_gemm.tree_gemm_blocked(a.data, b.data, tplan, out_fmt)
-        elif blocked and a.ndim == b.ndim and a.ndim > 2 \
+        tiled = jax.default_backend() == "gpu" and use_pallas is not False
+        if tiled and a.ndim == 2 and b.ndim == 2:
+            raw = tree_gemm.tree_gemm_tiled(a.data, b.data, tplan, out_fmt)
+        elif tiled and a.ndim == b.ndim and a.ndim > 2 \
                 and a.shape[:-2] == b.shape[:-2]:
             # batched: flatten leading dims and vmap the kernel (Pallas lifts
             # the batch into an extra grid dimension)
             batch = a.shape[:-2]
             ad = a.data.reshape((-1,) + a.shape[-2:])
             bd = b.data.reshape((-1,) + b.shape[-2:])
-            raw = jax.vmap(lambda x, y: tree_gemm.tree_gemm_blocked(
+            raw = jax.vmap(lambda x, y: tree_gemm.tree_gemm_tiled(
                 x, y, tplan, out_fmt))(ad, bd)
             raw = raw.reshape(batch + (m, n))
         else:
@@ -319,7 +313,7 @@ def qgemul(a: QTensor, b: QTensor, out_fmt: QFormat, mul_to=None,
     # streaming wide path: binary-carry over k-chunks at the QTensor level
     # (pair/limb values) — peak memory [.., m, chunk, n] instead of the
     # layered [.., m, k, n], which enables large wide GEMMs that cannot
-    # materialize the full product tensor in HBM
+    # materialize the full product tensor in device memory
     res = _stream_gemm_wide(a, b, out_fmt, mul_to, add_formats,
                             mul_full_prec)
     if res is not None:
@@ -339,9 +333,9 @@ def qgemul(a: QTensor, b: QTensor, out_fmt: QFormat, mul_to=None,
 # Wide fast path: exact 64-bit pair dots (proof-lossless, dot > int32)
 # ---------------------------------------------------------------------------
 
-_PAIR_SEG_MIN = 8        # MXU segment path only if >= this many products
+_PAIR_SEG_MIN = 8        # matmul segment path only if >= this many products
 #                          accumulate exactly in one int32 segment dot
-_PAIR_CHUNK = 64         # VPU path: products materialize [m, chunk, n]
+_PAIR_CHUNK = 64         # elementwise path: products materialize [m, chunk, n]
 
 
 def pair_axis_sum(ph, pl, axis: int):
@@ -370,11 +364,10 @@ def pair_axis_sum(ph, pl, axis: int):
 def pair_dot_2d(ad, bd, prod_iv: Interval):
     """Exact [m, n] (hi, lo) pair dot of ``[m, k] @ [k, n]``.
 
-    MXU path: when every product fits an int32 lane, split K into segments
-    short enough that each segment's dot provably fits int32, run them as
-    one batched integer matmul on the MXU, and fold the per-segment dots
-    with exact pair adds — the TPU-native way to accumulate a >32-bit
-    integer dot.  Otherwise (pair operands / >32-bit products) the
+    Matmul path: when every product fits an int32 lane, split K into
+    segments short enough that each segment's dot provably fits int32, run
+    them as one batched integer matmul, and fold the per-segment dots with
+    exact pair adds — a >32-bit integer dot from 32-bit accumulators.  Otherwise (pair operands / >32-bit products) the
     products compute directly in the 64-bit pair domain, chunked so only
     ``[m, chunk, n]`` materializes.  Valid only under a losslessness proof
     (any association order yields identical bits); callers prove the dot
@@ -489,7 +482,7 @@ def pair_sum_1d(data, val_iv: Interval):
 
 
 # ---------------------------------------------------------------------------
-# Limb fast path: exact wide dots beyond 64 bits (balanced-digit MXU matmul)
+# Limb fast path: exact wide dots beyond 64 bits (balanced-digit int8 matmul)
 # ---------------------------------------------------------------------------
 
 # admission caps for the digit-decomposition dot (static, from formats and
@@ -532,7 +525,7 @@ def limb_dot_plan(a_fmt: QFormat, b_fmt: QFormat, out_fmt: QFormat,
 def _fast_gemm_limb(a: QTensor, b: QTensor, out_fmt: QFormat,
                     plan: ExactPlan) -> Optional[QTensor]:
     """Proof-lossless dots beyond the 64-bit pair domain: balanced-digit
-    int8 MXU matmul + exact stacked-limb recombination + ONE limb
+    int8 matmul + exact stacked-limb recombination + ONE limb
     requantize from the raw-product scale (:mod:`.limbdot`).  Bit-exact by
     the same argument as :func:`_fast_gemm`: the losslessness proof makes
     every association and distribution order produce identical bits.
@@ -564,9 +557,9 @@ def _fast_gemm_limb(a: QTensor, b: QTensor, out_fmt: QFormat,
 def _fast_gemm_wide(a: QTensor, b: QTensor, out_fmt: QFormat,
                     plan: ExactPlan) -> Optional[QTensor]:
     """Single-chip analogue of the sharded wide-K strategy: when the
-    accumulation is proof-lossless but the dot outgrows int32 (so the MXU
+    accumulation is proof-lossless but the dot outgrows int32 (so the
     int32 fast path refused), compute the exact dot in the 64-bit pair
-    domain — MXU segment dots for lane operands, chunked pair products
+    domain — segment matmuls for lane operands, chunked pair products
     otherwise — and requantize once from the raw-product scale.  Bit-exact
     by the same argument as :func:`_fast_gemm`; replaces the slower
     order-preserving streaming tree for these configs.  Returns None when
@@ -590,7 +583,7 @@ def _fast_gemm_wide(a: QTensor, b: QTensor, out_fmt: QFormat,
 # ---------------------------------------------------------------------------
 
 # stream only when the layered [.., m, k, n] materialization would be large
-# enough to matter (HBM pressure / log-k full-tensor passes); small eager
+# enough to matter (device-memory pressure / log-k full-tensor passes); small eager
 # cases stay layered (fewer dispatches).  Tests lower this to force the path.
 _STREAM_MIN_ELEMS = 1 << 22
 _STREAM_CHUNK = 64
@@ -734,28 +727,17 @@ def _device_epilogue_ok(plan: ExactPlan, out_fmt: QFormat) -> bool:
     return route_requant(plan.dot_interval, plan.prod_frac, out_fmt) == "i32"
 
 
-def _fast_gemm(a: QTensor, b: QTensor, out_fmt: QFormat, plan: ExactPlan,
-               use_pallas: Optional[bool]) -> QTensor:
-    """Lossless-accumulation path: integer matmul on the MXU + one fused
-    requantize epilogue.  Bit-exact by :func:`exact_plan`'s proof."""
+def _fast_gemm(a: QTensor, b: QTensor, out_fmt: QFormat,
+               plan: ExactPlan) -> QTensor:
+    """Lossless-accumulation path: one integer matmul with int32
+    accumulation + one requantize epilogue that XLA fuses after it.
+    Bit-exact by :func:`exact_plan`'s proof."""
     import jax.numpy as jnp
-
-    if use_pallas is None:
-        from . import pallas_gemm
-
-        use_pallas = pallas_gemm.should_use_pallas(a, b, out_fmt)
-    if use_pallas:
-        from . import pallas_gemm
-
-        return pallas_gemm.qgemul_fast(a, b, out_fmt, plan)
 
     x, y = a.data, b.data
     if x.dtype != jnp.int8 or y.dtype != jnp.int8:
         # accumulate exactly in int32 either way (proof holds); keep the
-        # OPERANDS in the narrowest common lane.  Measured neutral on the
-        # current toolchain (device-trace A/B at int16-lane 2048^3:
-        # 1.00x — XLA already narrows an int32 matmul whose operands are
-        # converts from int16), kept as the explicit form
+        # OPERANDS in the narrowest common lane
         narrow = jnp.int16 if all(
             d in (jnp.int8, jnp.int16) for d in (x.dtype, y.dtype)) \
             else jnp.int32

@@ -1,4 +1,4 @@
-"""Exact N-limb integer emulation on 32-bit TPU lanes (beyond 64 bits).
+"""Exact N-limb integer emulation on 32-bit lanes (beyond 64 bits).
 
 Generalizes :mod:`.wideint`'s (hi, lo) pair to K uint32 limbs so formats with
 65..384-bit physical storage — the reference's deep multiword ``ArbiInt``
@@ -6,11 +6,11 @@ territory (reference ``include/QuBLAS.h:566-912``; its generated test grids
 go to 200-bit formats, ``test/ArbiInt/``) — are **device-resident** instead of
 host-side Python ints.  Values are two's complement over ``32*K`` bits,
 little-endian limbs, stacked on a **leading** axis ``(K, *elem_shape)`` so the
-element dims stay the minor (lane/sublane) dims on TPU.
+element dims stay the minor (contiguous) dims on device.
 
 Everything is pure jnp on uint32 lanes with static limb counts, static shift
 amounts and static loop bounds — XLA sees straight-line code it can fuse; the
-ops run identically on TPU and the CPU test backend, inside jit/vmap/
+ops run identically on the GPU and the CPU test backend, inside jit/vmap/
 shard_map.
 
 Width contract: callers prove via :mod:`.widths` (exact interval arithmetic)

@@ -1,4 +1,4 @@
-"""Multi-chip / multi-host parallelism (Mesh + shard_map + ICI collectives).
+"""Multi-chip / multi-host parallelism (Mesh + shard_map + collectives).
 
 The reference has no distribution (SURVEY.md §2.19); this package provides
 the BASELINE-mandated sharded GEMM strategies.

@@ -1,10 +1,10 @@
-"""Multi-chip / multi-host sharded quantized GEMM.
+"""Multi-device / multi-host sharded quantized GEMM.
 
 The reference is a single-threaded header with no distribution of any kind
 (SURVEY.md §2.19); these are the build-plan components mandated by
-BASELINE.json's north star: tensor-sharded Qgemul operands across a TPU pod
-slice with reduce-scatter / all-gather over ICI, and DP-style batched GEMM
-streaming across hosts (DCN).
+BASELINE.json's north star: tensor-sharded Qgemul operands across the
+devices of a host with reduce-scatter / all-gather over the device
+interconnect (NVLink), and DP-style batched GEMM streaming across hosts.
 
 Design (scaling-book recipe): pick a `Mesh`, annotate shardings, let XLA
 insert collectives.  Three strategies, chosen by bit-exactness constraints:
@@ -16,7 +16,7 @@ insert collectives.  Three strategies, chosen by bit-exactness constraints:
   order as the single-chip path.
 
 * ``"k"`` — shard the contraction dim over ``tp``; each chip computes a
-  partial int32 dot, partials combine with ``psum`` (all-reduce over ICI) or
+  partial int32 dot, partials combine with ``psum`` (all-reduce) or
   ``psum_scatter`` (reduce-scatter, N-sharded output), and the requantize
   epilogue runs on the summed value.  Valid **only** under an exactness
   proof (:func:`qublas_tpu.ops.gemm.exact_plan`): integer adds must be
@@ -69,14 +69,16 @@ __all__ = ["make_mesh", "shard_qgemul", "sharded_qgemul_k",
 def init_distributed(coordinator_address: Optional[str] = None,
                      num_processes: Optional[int] = None,
                      process_id: Optional[int] = None) -> int:
-    """Initialize the multi-host JAX runtime (DCN side of the BASELINE
-    north star: "batched quantized GEMM streams continuously across hosts").
+    """Initialize the multi-host JAX runtime (the cross-host side of the
+    BASELINE north star: "batched quantized GEMM streams continuously
+    across hosts").
 
-    On a TPU pod slice with the standard launcher env (TPU_WORKER_HOSTNAMES
-    etc.) all arguments auto-detect; returns the global device count.  After
-    this, :func:`make_mesh` over ``jax.devices()`` spans hosts — dp across
-    DCN, tp across ICI — and the shard_map programs below run unchanged
-    (XLA routes collectives over the right fabric per the mesh layout).
+    Pass the coordinator address, process count and this process's id
+    (nothing auto-detects them on a plain GPU host); returns the global
+    device count.  After this, :func:`make_mesh` over ``jax.devices()``
+    spans hosts — dp across the network, tp across a host's NVLink — and
+    the shard_map programs below run unchanged (XLA routes collectives over
+    the right fabric per the mesh layout).
     """
     import jax
 
@@ -91,8 +93,10 @@ def init_distributed(coordinator_address: Optional[str] = None,
 def make_mesh(dp: int = 1, tp: Optional[int] = None,
               devices=None) -> Mesh:
     """Build a (dp, tp) device mesh.  ``tp`` defaults to all remaining
-    devices.  On a multi-host pod slice ``jax.devices()`` spans hosts, so dp
-    naturally maps across DCN and tp across ICI."""
+    devices.  The devices are reshaped in order with no topology, which
+    suits all-to-all NVLink within a host; across hosts ``jax.devices()``
+    lists each host's devices together, so dp maps across hosts and tp
+    within one."""
     devices = np.asarray(devices if devices is not None else jax.devices())
     if tp is None:
         tp = len(devices) // dp
@@ -261,13 +265,12 @@ def shard_qgemul(a: QTensor, b: QTensor, out_fmt: QFormat, mesh: Mesh,
             plan = exact_plan(a.fmt, b.fmt, mul_fmt, add_formats,
                               a.shape[-1])
             # K needs int32 partial dots + the full int32-lane epilogue
-            # proof (the same gate as the single-chip MXU fast path) +
+            # proof (the same gate as the single-device fast path) +
             # a tp-divisible contraction dim.  Proof-lossless dots beyond
-            # int32 prefer the LIMB strategy (late round 4, mirroring the
-            # single-chip dispatch reorder: its per-chip balanced-digit
-            # int8 MXU partial dots measured 28-672x the pair-domain dots
-            # k_wide runs, device-trace) with k_wide as the fallback;
-            # otherwise mn is always valid
+            # int32 prefer the LIMB strategy (mirroring the single-device
+            # dispatch order: its per-device balanced-digit int8 partial
+            # dots stay int8 matmuls whatever the operand width) with
+            # k_wide as the fallback; otherwise mn is always valid
             if plan is not None and _device_epilogue_ok(plan, out_fmt) \
                     and a.shape[-1] % mesh.shape["tp"] == 0:
                 strategy = "k"
@@ -373,7 +376,7 @@ def sharded_qgemul_mn(a: QTensor, b: QTensor, out_fmt: QFormat, mesh: Mesh,
 
 
 # ---------------------------------------------------------------------------
-# K sharding — exactness-proof regime; psum/reduce-scatter over ICI
+# K sharding — exactness-proof regime; psum/reduce-scatter over the mesh
 # ---------------------------------------------------------------------------
 
 def sharded_qgemul_k(a: QTensor, b: QTensor, out_fmt: QFormat, mesh: Mesh,
@@ -381,7 +384,7 @@ def sharded_qgemul_k(a: QTensor, b: QTensor, out_fmt: QFormat, mesh: Mesh,
                      reduce_scatter: bool = False,
                      epilogue_lut=None) -> QTensor:
     """Shard the contraction dim over ``tp``.  Each chip computes a partial
-    int32 dot on its K-slice (MXU), then partials sum over ICI — ``psum``
+    int32 dot on its K-slice, then partials sum over the mesh — ``psum``
     (output replicated over tp) or ``psum_scatter`` (reduce-scatter, output
     N-sharded over tp, the TP-style layout that feeds a subsequent
     K-sharded GEMM).  The requantize epilogue runs *after* the collective,
@@ -415,7 +418,7 @@ def sharded_qgemul_k(a: QTensor, b: QTensor, out_fmt: QFormat, mesh: Mesh,
     from ..ops.widths import route_requant
 
     if route_requant(plan.dot_interval, plan.prod_frac, out_fmt) != "i32":
-        # same epilogue gate as the single-chip MXU fast path: the
+        # same epilogue gate as the single-device fast path: the
         # requantize intermediates (e.g. an upshift toward a larger
         # frac_bits) must provably fit int32 lanes, or the wrap would
         # silently diverge from the oracle
@@ -458,8 +461,8 @@ def sharded_qgemul_k_pipelined(a: QTensor, b: QTensor, out_fmt: QFormat,
                                mesh: Mesh, mul_to=None, add_formats=(),
                                mul_full_prec=False,
                                epilogue_lut=None) -> QTensor:
-    """K-sharded GEMM as a *decomposed reduce-scatter matmul*: the ICI
-    transfer overlaps the MXU compute (SURVEY.md §7 hard part 5).
+    """K-sharded GEMM as a *decomposed reduce-scatter matmul*: the
+    transfer overlaps the matmul compute (SURVEY.md §7 hard part 5).
 
     Each of the ``tp`` steps computes one output N-block's partial dot while
     the accumulator ring-rotates via ``ppermute`` — XLA schedules the async
@@ -630,7 +633,7 @@ def _butterfly_fold(v: QTensor, add_formats, s: int, tp: int):
     global tree's level-``s+lvl`` pairing of node values — and BOTH
     partners compute the quantized merge (lower index = left operand), so
     the final value ends replicated.  Moves ``log2(tp)`` node volumes per
-    device instead of the all_gather's ``tp-1`` (32x less ICI traffic at
+    device instead of the all_gather's ``tp-1`` (32x less interconnect traffic at
     256 chips) and does ``log2(tp)`` merge folds instead of ``tp-1``."""
     from ..ops import elementwise as ew
     from ..ops.reduce import layer_format
@@ -660,7 +663,7 @@ def sharded_qgemul_k_tree(a: QTensor, b: QTensor, out_fmt: QFormat,
     contraction dim split on level-``s`` subtree boundaries (``2^s | k``),
     each device folds its complete subtrees locally with the global layer
     formats (layers ``0..s-1`` — no odd tails exist below level ``s``),
-    the ``k/2^s`` level-``s`` node values all_gather over ICI (tiny:
+    the ``k/2^s`` level-``s`` node values all_gather over the mesh (tiny:
     ``m x n x k/2^s`` elements), and the top layers fold with the shifted
     TypeAt formats via :func:`~qublas_tpu.ops.reduce.qreduce` — whose
     odd-tail converting-assignment rules reproduce the global tree's
@@ -672,7 +675,7 @@ def sharded_qgemul_k_tree(a: QTensor, b: QTensor, out_fmt: QFormat,
     Pallas tree kernel runs unchanged per chip — and, for power-of-2
     ``tp``, the cross-device levels fold via a ppermute BUTTERFLY
     (log2(tp) exchange+merge rounds) instead of the gather.  Otherwise
-    the gathered top fold is replicated over ``tp`` (O(m*n*k/2^s) VPU
+    the gathered top fold is replicated over ``tp`` (O(m*n*k/2^s) elementwise
     work).  ``butterfly``: None = auto (butterfly whenever the split
     qualifies), False = always gather, True = require the butterfly
     (raises if the split does not qualify — never a silent downgrade).
@@ -732,8 +735,8 @@ def sharded_qgemul_k_tree(a: QTensor, b: QTensor, out_fmt: QFormat,
                 nodes = QTensor(_moveaxis(prod.data, 1, 0), prod.fmt)
             elif q == 1:
                 # the whole device span is ONE complete subtree: the local
-                # fold is a single-chip qgemul (blocked Pallas tree kernel
-                # on TPU); the cast into node_fmt is the identity (the
+                # fold is a single-device qgemul (the tiled tree kernel
+                # on the GPU); the cast into node_fmt is the identity (the
                 # tree's level-s value already lives in node_fmt)
                 one = _qgemul(qa, qb, node_fmt, mul_to=mul_to,
                               add_formats=add_formats,
@@ -776,7 +779,7 @@ def sharded_qgemul_k_tree(a: QTensor, b: QTensor, out_fmt: QFormat,
 
 
 # ---------------------------------------------------------------------------
-# Wide K sharding — pair-domain partial dots, carry-correct psum over ICI
+# Wide K sharding — pair-domain partial dots, carry-correct psum over the mesh
 # ---------------------------------------------------------------------------
 
 def _k_wide_plan(a: QTensor, b: QTensor, out_fmt: QFormat, mul_to,
@@ -855,12 +858,12 @@ def sharded_qgemul_k_wide(a: QTensor, b: QTensor, out_fmt: QFormat,
     could only shard mn.
 
     Each chip computes its K-slice's partial dot *exactly* in (hi, lo)
-    pair arithmetic (MXU segment dots when products fit int32 lanes —
+    pair arithmetic (segment matmuls when products fit int32 lanes —
     :func:`~qublas_tpu.ops.gemm.pair_dot_2d`), partials combine with a carry-correct
-    psum/psum_scatter of 16-bit limb columns over ICI, and the pair
+    psum/psum_scatter of 16-bit limb columns over the mesh, and the pair
     requantize epilogue (:func:`~qublas_tpu.ops.wideint.requantize_pair` /
     ``_keep``) runs after the collective.  Bit-exact by the same argument
-    as the single-chip MXU fast path: the lossless proof makes every
+    as the single-device fast path: the lossless proof makes every
     association and distribution order produce identical bits.
 
     Requires the proof; raises otherwise (use strategy='mn').
@@ -941,7 +944,7 @@ def sharded_qgemul_k_wide_pipelined(a: QTensor, b: QTensor, out_fmt: QFormat,
     Each of the ``tp`` steps computes one output N-block's exact (hi, lo)
     partial dot (:func:`~qublas_tpu.ops.gemm.pair_dot_2d`) while the pair
     accumulator ring-rotates via ``ppermute`` — XLA overlaps the async
-    permute with the next block's MXU/VPU compute.  Ring accumulation uses
+    permute with the next block's compute.  Ring accumulation uses
     exact mod-2^64 :func:`~qublas_tpu.ops.wideint.pair_add` (no column psum,
     so no tp bound): every intermediate is a subset sum of ≤k products and
     the losslessness proof bounds it to the signed 64-bit domain.
@@ -1044,7 +1047,7 @@ def _psum_limbs(limbs, scatter: bool):
     (VERDICT r3 item 1): split each limb into two 16-bit columns (each
     per-device column < 2^16, so the summed column fits int32 while
     tp < 2^15 — ``_check_psum_tp``), ONE psum / psum_scatter of the stacked
-    ``(2*Kw, m, n)`` int32 tensor over ICI, then a local carry-propagate
+    ``(2*Kw, m, n)`` int32 tensor over the mesh, then a local carry-propagate
     pass.  Mod-2^(32*Kw) addition is exact for the true dot because the
     limb plan bounds it (and every partial) to the working width."""
     Kw = limbs.shape[0]
@@ -1078,9 +1081,9 @@ def sharded_qgemul_k_limb(a: QTensor, b: QTensor, out_fmt: QFormat,
     these configs previously could only shard mn).
 
     Each chip computes its K-slice's partial dot *exactly* as a
-    balanced-digit int8 MXU matmul recombined into stacked uint32 limbs
+    balanced-digit int8 matmul recombined into stacked uint32 limbs
     (:func:`~qublas_tpu.ops.limbdot.limb_dot_2d`), partials combine with a
-    carry-correct psum / psum_scatter of 2·Kw 16-bit limb columns over ICI,
+    carry-correct psum / psum_scatter of 2·Kw 16-bit limb columns over the mesh,
     and the limb requantize epilogue
     (:func:`~qublas_tpu.ops.limbint.requantize_limb`) runs after the
     collective.  Bit-exact by the losslessness proof: every association and
@@ -1230,7 +1233,7 @@ def sharded_qgemul_k_limb_pipelined(a: QTensor, b: QTensor, out_fmt: QFormat,
 def sharded_qgemul_dp(a: QTensor, b: QTensor, out_fmt: QFormat, mesh: Mesh,
                       mul_to=None, add_formats=(), **kw) -> QTensor:
     """Shard the leading batch dim over the whole mesh (dp×tp): each chip
-    runs independent GEMMs on its batch slice — the DCN streaming pattern
+    runs independent GEMMs on its batch slice — the cross-host streaming pattern
     (BASELINE north star: "batched quantized GEMM streams continuously
     across hosts")."""
     if a.ndim < 3:
@@ -1298,7 +1301,7 @@ def sharded_cgemul(a, b, out_fmt, mesh: Mesh, algo: str = "basic",
 
     ``"mn"`` (always bit-exact, any config) shards M over dp and N over tp;
     ``"k"`` shards the contraction dim and psums the 3 (TF) / 4 (basic)
-    integer dots over ICI — valid only under the complex fast path's
+    integer dots over the mesh — valid only under the complex fast path's
     lossless proof.  ``"auto"`` probes the proof and picks.
     """
     from ..ops.cgemm import _fast_cgemul, _part_formats, _split_layers
@@ -1500,7 +1503,7 @@ def sharded_cgemul_dp(a, b, out_fmt, mesh: Mesh, algo: str = "basic",
                       add_formats=(), **mul_tags):
     """Shard the leading batch dim of a batched complex GEMM over the whole
     mesh (dp×tp): each chip runs independent complex GEMMs on its batch
-    slice — the complex side of the DCN streaming pattern
+    slice — the complex side of the cross-host streaming pattern
     (:func:`sharded_qgemul_dp`).  Bit-exact for every config: each batch
     element's full GEMM stays on one chip."""
     from ..complex import QComplexTensor
@@ -1655,8 +1658,8 @@ def sharded_cgemul_k(a, b, out_fmt, mesh: Mesh, algo: str = "basic",
                      add_formats=(), reduce_scatter: bool = False,
                      **mul_tags):
     """Shard the contraction dim over ``tp``: each chip computes the complex
-    fast path's partial integer dots (3 MXU matmuls for TF, 4 for basic) on
-    its K-slice; partials psum over ICI — or ``psum_scatter``
+    fast path's partial integer dots (3 matmuls for TF, 4 for basic) on
+    its K-slice; partials psum over the mesh — or ``psum_scatter``
     (``reduce_scatter=True``, output N-sharded over tp) — before the exact
     shift/combine epilogue.  Since late round 4 the wide regime rides the
     same hook: complex dots beyond int32 compute as per-chip limb dots and
@@ -1825,7 +1828,7 @@ def sharded_qreduce(x: QTensor, layer_formats=(), axis: int = -1,
 
 def sharded_qreduce_k(x: QTensor, layer_formats=(), mesh: Mesh = None) -> QTensor:
     """Reduction-axis-sharded tree reduction of a vector: each chip sums its
-    slice with plain int32 adds, partials psum over ICI, then one final
+    slice with plain int32 adds, partials psum over the mesh, then one final
     requantize.  Valid only when the per-layer tree is provably lossless
     (``tree_exact``) so integer-addition order cannot change bits."""
     from ..ops.gemm import tree_exact

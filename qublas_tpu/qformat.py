@@ -1,13 +1,13 @@
 """Fixed-point format descriptors and output-format inference.
 
-TPU-native re-design of QuBLAS's compile-time tag system. The reference
+Device re-design of QuBLAS's compile-time tag system. The reference
 encodes formats as C++ template tags ``Qu<intBits<I>, fracBits<F>,
 isSigned<S>, QuMode<R>, OfMode<O>>`` parsed by ``tagExtractor``
 (reference ``include/QuBLAS.h:133-190``, ``:2346-2498``).  Here a format is a
 *value*: a frozen dataclass carried alongside a raw-integer ``jax.Array``
 inside a :class:`~qublas_tpu.qtensor.QTensor` pytree.  This keeps every op
 trace-time static (shapes and formats are Python values, never traced), which
-is what XLA needs to tile everything onto the MXU/VPU.
+is what XLA needs to compile every op to static integer programs.
 
 Defaults match the reference exactly (``QuBLAS.h:2355-2359``):
 int_bits=8, frac_bits=8, signed=True, RoundMode.TRN_TCPL, OverflowMode.SAT_TCPL.

@@ -1,6 +1,6 @@
 """QTensor: a fixed-point tensor = raw-integer array + QFormat.
 
-TPU-native replacement for the reference's ``Qu_s<dim<...>, elem>`` container
+Device replacement for the reference's ``Qu_s<dim<...>, elem>`` container
 (QuBLAS.h:2675-3037).  The reference's static shape algebra, expression
 templates and materialization loops all collapse into JAX: shapes are array
 shapes, laziness is XLA fusion, slicing is jnp indexing.

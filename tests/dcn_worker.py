@@ -3,7 +3,7 @@
 Each process owns 2 virtual CPU devices; the (dp=2, tp=2) mesh spans the
 two processes, so the ``dp`` axis crosses the process boundary — the DCN
 side of BASELINE's north star ("batched quantized GEMM streams continuously
-across hosts") — while ``tp`` stays process-local (the ICI stand-in).
+across hosts") — while ``tp`` stays process-local (the in-host stand-in).
 
 Runs ``init_distributed`` (the code path VERDICT round 1 flagged as never
 executed), then the dp-streaming GEMM, a K-sharded psum GEMM, and a

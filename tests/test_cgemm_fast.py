@@ -1,4 +1,4 @@
-"""Complex GEMM MXU fast path: lossless configs collapse to 4 (basic) /
+"""Complex GEMM integer-matmul fast path: lossless configs collapse to 4 (basic) /
 3 (TF) integer matmuls; must match the general tree path bit-for-bit."""
 
 import numpy as np

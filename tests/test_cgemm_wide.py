@@ -3,7 +3,7 @@
 Proof-lossless complex GEMMs whose dots outgrow int32 — wide pair/limb
 operands, >int32 dot totals, pair/limb output storage — previously ran the
 layered order-preserving path and could only shard mn.  They now collapse
-to 3 (TF) or 4 (basic) balanced-digit MXU limb dots with exact limb
+to 3 (TF) or 4 (basic) balanced-digit int8 limb dots with exact limb
 shift/combine epilogues (``ops/cgemm.py:_fast_cgemul`` limb branch), and
 K-shard through ``sharded_cgemul_k`` with a carry-correct limb psum.
 Every case must match the `hostops.cgemul` oracle bit-for-bit: the

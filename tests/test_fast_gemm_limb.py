@@ -1,7 +1,7 @@
 """Limb-domain wide fast GEMM (round 4): proof-lossless configs whose dot
 outgrows the signed 64-bit pair domain — wide pair operands (e.g. 40x40-bit
 GEMMs with 80-bit products), limb-storage operands, limb-storage outputs —
-compute a balanced-digit int8 MXU dot + exact stacked-limb recombination
+compute a balanced-digit int8 dot + exact stacked-limb recombination
 (:mod:`qublas_tpu.ops.limbdot`) instead of the order-preserving streaming
 tree.  Bit-exactness pins: the host golden model, and the pre-round-4 route
 (same qgemul call with the limb fast path disabled).
@@ -222,7 +222,7 @@ def test_gate_rejects_oversized_configs(monkeypatch):
 
 
 def test_int32_dot_configs_not_taken():
-    """Configs the int32 MXU path already covers must not reach the limb
+    """Configs the int32 matmul path already covers must not reach the limb
     gate (dispatch order), and order-sensitive configs have no plan."""
     f8 = qformat(4, 4)
     out = qformat(16, 8)
@@ -286,7 +286,7 @@ def test_limb_axis_sum_odd_and_ones():
 
 def test_limb_dispatch_preferred_over_pair(monkeypatch):
     """Late-round-4 dispatch reorder: where BOTH wide fast paths admit a
-    config, qgemul must take the balanced-digit MXU dot first (device-trace
+    config, qgemul must take the balanced-digit int8 dot first (device-trace
     measured 28-672x the pair-domain dot across lane widths)."""
     import numpy as np
 

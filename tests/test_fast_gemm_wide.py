@@ -1,5 +1,5 @@
 """Single-chip wide fast GEMM (round 3): proof-lossless configs whose dot
-outgrows int32 compute an exact 64-bit pair dot (MXU segment decomposition
+outgrows int32 compute an exact 64-bit pair dot (matmul segment decomposition
 for lane operands, chunked pair products otherwise) + one pair epilogue,
 instead of the order-preserving streaming tree.  Bit-exactness pins:
 host golden model (breaks any common-mode bug with the sharded wide-K
@@ -84,7 +84,7 @@ def test_pair_operand_vs_oracle_and_stream(monkeypatch):
 
 
 def test_lane_segment_path_vs_oracle():
-    """(13,0) lane operands: products fit int32, dot does not — the MXU
+    """(13,0) lane operands: products fit int32, dot does not — the matmul
     segment decomposition."""
     fa = qformat(13, 0)
     out = qformat(25, 0, overflow_mode=OverflowMode.SAT_TCPL)

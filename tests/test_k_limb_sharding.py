@@ -1,7 +1,7 @@
 """Limb-domain K-sharding (round 4, VERDICT r3 item 1).
 
 Proof-lossless dots beyond the 64-bit pair domain sharded over the
-contraction dim: per-chip balanced-digit int8 MXU partial dots recombined
+contraction dim: per-chip balanced-digit int8 partial dots recombined
 into stacked uint32 limbs, carry-correct psum of 2·Kw 16-bit limb columns
 over the mesh, limb requantize epilogue after the collective.  Every case
 must be bit-exact vs the single-chip path — the losslessness proof makes
@@ -214,7 +214,7 @@ def test_psum_tp_bound_guard():
 def test_auto_prefers_k_limb_over_k_wide():
     """Late-round-4 auto reorder: for a proof-lossless dot past int32 that
     BOTH wide strategies admit, the auto probe picks k_limb (its per-chip
-    partial dots are the balanced-digit MXU kernel, measured 28-672x the
+    partial dots are the balanced-digit int8 dots, preferred over the
     pair-domain dots k_wide runs)."""
     mesh = _mesh_or_skip()
     from qublas_tpu.parallel import shard_qgemul

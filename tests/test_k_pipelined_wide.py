@@ -1,6 +1,6 @@
 """Pipelined wide/limb K-sharding (round 4 follow-on).
 
-The latency-hiding ring (``ppermute`` overlapping the next block's MXU
+The latency-hiding ring (``ppermute`` overlapping the next block's matmul
 compute — the decomposed reduce-scatter matmul ``sharded_qgemul_k_pipelined``
 runs for int32 dots) generalized to proof-lossless dots beyond int32:
 
@@ -89,7 +89,7 @@ def test_kwp_pair_out():
 
 
 def test_kwp_lane_segment_path():
-    """Lane operands, int32 products, >int32 dot: the MXU segment path
+    """Lane operands, int32 products, >int32 dot: the matmul segment path
     inside each ring step."""
     mesh = _mesh_or_skip()
     from qublas_tpu.parallel import sharded_qgemul_k_wide_pipelined

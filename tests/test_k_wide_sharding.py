@@ -81,7 +81,7 @@ def test_k_wide_pair_out():
 
 def test_k_wide_lane_segment_path():
     """Lane operands whose products fit int32 but whose dot does not:
-    the MXU segment-dot decomposition.  (13,0) raws -> |prod| <= 2^26, so
+    the matmul segment-dot decomposition.  (13,0) raws -> |prod| <= 2^26, so
     segments of ~32 accumulate exactly in int32 while the k=64 dot needs
     the 64-bit domain."""
     mesh = _mesh_or_skip()

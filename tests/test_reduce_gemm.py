@@ -144,7 +144,7 @@ def test_qgemul_batched_matches_loop():
 
 
 # ---------------------------------------------------------------------------
-# Qgemul — exact (MXU) fast path
+# Qgemul — exact (integer-matmul) fast path
 # ---------------------------------------------------------------------------
 
 def test_exact_plan_triggers_for_lossless_config():
@@ -184,26 +184,6 @@ def test_qgemul_full_prec_products():
     np.testing.assert_array_equal(np.asarray(dev.raw(), dtype=np.int64), host)
 
 
-def test_qgemul_pallas_interpret_matches():
-    """The Pallas kernel (interpret mode on CPU) is bit-identical to the
-    dot_general fast path."""
-    from qublas_tpu.ops import pallas_gemm
-    from qublas_tpu.ops.gemm import exact_plan
-
-    fa = qformat(3, 4)
-    wide = qformat(24, 8)
-    out = qformat(6, 4, overflow_mode=OverflowMode.SAT_ZERO)
-    m = n = 128 * 2
-    k = 512
-    A, B = rand_raws(fa, (m, k)), rand_raws(fa, (k, n))
-    a, b = from_raw(A, fa), from_raw(B, fa)
-    plan = exact_plan(fa, fa, wide, (wide,), k)
-    assert plan is not None
-    ref = qgemul(a, b, out, mul_to=wide, add_formats=(wide,), use_pallas=False)
-    pal = pallas_gemm.qgemul_fast(a, b, out, plan, interpret=True)
-    np.testing.assert_array_equal(np.asarray(ref.raw()), np.asarray(pal.raw()))
-
-
 # ---------------------------------------------------------------------------
 # Qgemv
 # ---------------------------------------------------------------------------
@@ -230,35 +210,3 @@ def test_qgemul_wide_format_host_fallback():
     dev = qgemul(from_raw(A, f), from_raw(B, f), f)
     host = _host_gemm_ref(A, B, f, f, f)
     assert (np.asarray(dev.raw(), dtype=object) == host).all()
-
-
-def test_pallas_reducer_optin_bitexact(monkeypatch):
-    """The opt-in VMEM Pallas reducer (late round 4, QUBLAS_REDUCE_PALLAS=1;
-    kept as a recorded negative result — see ops/reduce.py) must stay
-    bit-identical to the production XLA path on its gated configs."""
-    import numpy as np
-
-    from qublas_tpu.ops import reduce as R
-    from qublas_tpu.qformat import OverflowMode, RoundMode, qformat
-    from qublas_tpu.qtensor import from_raw
-
-    f = qformat(4, 4)
-    layers = (qformat(5, 3, round_mode=RoundMode.RND_CONV,
-                      overflow_mode=OverflowMode.SAT_ZERO), qformat(6, 2))
-    rng = np.random.RandomState(7)
-    raws = rng.randint(f.raw_min, f.raw_max + 1, (256, 64), dtype=np.int64)
-    x = from_raw(raws.astype(object), f)
-    want = R.qreduce(x, layers, axis=1)
-    monkeypatch.setattr(R, "_USE_PALLAS", True)
-    # gate sanity: the plan exists and the kernel path is actually taken
-    assert R._plan_reduce_lanes(f, layers, 64) is not None
-    got = R.qreduce(x, layers, axis=1)
-    assert got.fmt == want.fmt
-    np.testing.assert_array_equal(np.asarray(got.data),
-                                  np.asarray(want.data))
-    # odd n falls through to the XLA path even when enabled
-    x_odd = from_raw(raws[:, :63].astype(object), f)
-    got_odd = R.qreduce(x_odd, layers, axis=1)
-    want_odd = R.qreduce(x_odd, layers, axis=1)
-    np.testing.assert_array_equal(np.asarray(got_odd.data),
-                                  np.asarray(want_odd.data))

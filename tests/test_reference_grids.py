@@ -108,7 +108,7 @@ def _wide_grid_values(fname: str, kind: str):
 def test_replay_shift_grids_device_limbs():
     """The same reference-generated vectors, pushed through the DEVICE
     N-limb shift primitives (ops/limbint.py lshl/lshr) in batched jnp
-    calls — the reference's structural shift grid running on TPU lanes."""
+    calls — the reference's structural shift grid running on device lanes."""
     from collections import defaultdict
 
     from qublas_tpu.ops import limbint as L

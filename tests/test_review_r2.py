@@ -72,15 +72,16 @@ def test_native_envelope_uses_actual_value_widths():
     assert int(np.asarray(r2.raw(), dtype=object).reshape(-1)[0]) == want2
 
 
-def test_blocked_ok_clamps_like_the_kernel():
-    """blocked_ok must accept every shape tree_gemm_blocked handles after
-    tile clamping (n=128 regressed when the default BN became 256)."""
+def test_tile_shape_pads_like_the_kernel():
+    """tile_shape's padded extents are whole tiles that cover the operands,
+    with power-of-two tile edges no larger than the problem needs."""
     from qublas_tpu.ops import tree_gemm
 
-    assert tree_gemm.blocked_ok(128, 128, 512)
-    assert tree_gemm.blocked_ok(256, 384, 256)
-    assert tree_gemm.blocked_ok(64, 640, 128)
-    assert not tree_gemm.blocked_ok(128, 128, 100)  # k not divisible
+    for m, n in [(128, 128), (256, 384), (64, 640), (33, 7), (1, 1000)]:
+        bm, bn, mp, np_ = tree_gemm.tile_shape(m, n)
+        assert mp % bm == 0 and np_ % bn == 0
+        assert 0 <= mp - m < bm and 0 <= np_ - n < bn
+        assert bm & (bm - 1) == 0 and bn & (bn - 1) == 0
 
 
 def test_sharded_qreduce_rejects_bad_axes():
@@ -619,19 +620,6 @@ def test_reference_shuffle_raises_beyond_envelope():
         refrand.reference_shuffle(big, gen=refrand.MT19937(1))
 
 
-def test_forced_pallas_rejects_non_tile_shapes():
-    """use_pallas=True with non-tile-multiple shapes used to return
-    uninitialized output (the grid floor-divides); it must raise."""
-    from qublas_tpu.ops.gemm import qgemul
-
-    f7 = qformat(7, 0)
-    A = from_raw(np.ones((64, 256), dtype=int), f7)
-    B = from_raw(np.ones((256, 64), dtype=int), f7)
-    with pytest.raises(ValueError, match="divisible by"):
-        qgemul(A, B, qformat(20, 0), mul_to=qformat(16, 0),
-               add_formats=(qformat(30, 0),), use_pallas=True)
-
-
 def test_host_binary_empty_operands():
     """Zero-size host-route operands must produce an empty tensor with the
     statically-derived output format (the per-element loop never runs)."""
@@ -789,7 +777,7 @@ def test_bitstream_0d_round_trip_with_orders():
 def test_wrp_tcpl_sat_word_wrap_bounds_exactness_proof():
     """WRP_TCPL_SAT is the identity STUB, but the store wraps at the
     machine word: a product format whose upshifted values exceed the word
-    wraps per element, so the MXU fast path's exactness proof must bound
+    wraps per element, so the integer-matmul fast path's exactness proof must bound
     its identity range by the word — big-fuzz catch (the dot of unwrapped
     values diverged from the oracle)."""
     from qublas_tpu.ops.gemm import qgemul

@@ -55,7 +55,7 @@ def test_k_sharded_reduce_scatter_matches():
 
 
 def test_k_sharded_pipelined_matches_single_chip():
-    """Decomposed reduce-scatter matmul (ppermute-pipelined ICI overlap)
+    """Decomposed reduce-scatter matmul (ppermute-pipelined transfer overlap)
     must be bit-identical to the single-chip result."""
     from qublas_tpu.parallel import sharded_qgemul_k_pipelined
 

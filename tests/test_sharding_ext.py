@@ -130,7 +130,7 @@ def test_sharded_cgemul_mn_basic_inferred_formats():
 
 def test_sharded_cgemul_k_tf_lossless():
     """K-sharded TF complex GEMM under the lossless proof: partial dots
-    psum over ICI, bit-identical to single-chip."""
+    psum over the mesh, bit-identical to single-chip."""
     f = qformat(3, 4)
     wide = qformat(20, 8)
     mid = qformat(5, 4)

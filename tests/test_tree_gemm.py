@@ -69,44 +69,185 @@ def test_qgemul_dispatches_tree_scan():
         host_ref(A, B, F88Z, F88Z, F88Z))
 
 
-def test_pallas_tree_matches_scan_interpret():
-    k = 24
-    A = rng.randint(F88Z.raw_min, F88Z.raw_max + 1, (128, k))
-    B = rng.randint(F88Z.raw_min, F88Z.raw_max + 1, (k, 128))
-    mf = mul_merge(F88Z, F88Z, None, False)
-    plan = tree_gemm.plan_tree(F88Z, F88Z, mf, (), k, F88Z)
-    a, b = from_raw(A, F88Z).data, from_raw(B, F88Z).data
-    scan = np.asarray(tree_gemm.tree_gemm_scan(a, b, plan, F88Z))
-    pal = np.asarray(tree_gemm.tree_gemm_pallas(a, b, plan, F88Z,
-                                                interpret=True))
-    np.testing.assert_array_equal(pal, scan)
-
-
-@pytest.mark.parametrize("k", [64, 128, 320])
-def test_blocked_two_phase_matches_scan(k):
-    A = rng.randint(F88Z.raw_min, F88Z.raw_max + 1, (128, k))
-    B = rng.randint(F88Z.raw_min, F88Z.raw_max + 1, (k, 128))
-    mf = mul_merge(F88Z, F88Z, None, False)
-    plan = tree_gemm.plan_tree(F88Z, F88Z, mf, (), k, F88Z)
-    a, b = from_raw(A, F88Z).data, from_raw(B, F88Z).data
-    scan = np.asarray(tree_gemm.tree_gemm_scan(a, b, plan, F88Z))
-    blkd = np.asarray(tree_gemm.tree_gemm_blocked(a, b, plan, F88Z,
-                                                  interpret=True))
-    np.testing.assert_array_equal(blkd, scan)
-
-
-def test_blocked_layered_formats():
-    layers = (qformat(9, 6, round_mode=RoundMode.RND_CONV), qformat(10, 4))
-    k = 128
-    A = rng.randint(F88Z.raw_min, F88Z.raw_max + 1, (128, k))
-    B = rng.randint(F88Z.raw_min, F88Z.raw_max + 1, (k, 128))
+def _tiled_vs_scan(m, k, n, layers=(), **kw):
+    A = rng.randint(F88Z.raw_min, F88Z.raw_max + 1, (m, k))
+    B = rng.randint(F88Z.raw_min, F88Z.raw_max + 1, (k, n))
     mf = mul_merge(F88Z, F88Z, None, False)
     plan = tree_gemm.plan_tree(F88Z, F88Z, mf, layers, k, F88Z)
     a, b = from_raw(A, F88Z).data, from_raw(B, F88Z).data
     scan = np.asarray(tree_gemm.tree_gemm_scan(a, b, plan, F88Z))
-    blkd = np.asarray(tree_gemm.tree_gemm_blocked(a, b, plan, F88Z,
-                                                  interpret=True))
-    np.testing.assert_array_equal(blkd, scan)
+    kw.setdefault("interpret", True)
+    tiled = np.asarray(tree_gemm.tree_gemm_tiled(a, b, plan, F88Z, **kw))
+    assert tiled.shape == (m, n) and tiled.dtype == scan.dtype
+    np.testing.assert_array_equal(tiled, scan)
+    return A, B, tiled
+
+
+@pytest.mark.parametrize("k", [64, 128, 320])
+def test_tiled_kernel_matches_scan(k):
+    """The GPU kernel (Pallas interpreter here) against the scan."""
+    _tiled_vs_scan(64, k, 64)
+
+
+def test_tiled_kernel_layered_formats():
+    layers = (qformat(9, 6, round_mode=RoundMode.RND_CONV), qformat(10, 4))
+    _tiled_vs_scan(64, 128, 64, layers)
+
+
+@pytest.mark.parametrize("m,k,n", [(5, 1, 3), (8, 2, 8), (33, 24, 40),
+                                   (16, 37, 16), (40, 47, 70)])
+def test_tiled_kernel_ragged(m, k, n):
+    """Odd k (leftover products and odd-tail drains) and m, n padded to
+    whole tiles, against the host golden model."""
+    A, B, tiled = _tiled_vs_scan(m, k, n)
+    np.testing.assert_array_equal(tiled, host_ref(A, B, F88Z, F88Z, F88Z))
+
+
+@pytest.mark.parametrize("tile,blk", [(16, 4), (8, 16), (32, 1)])
+def test_tiled_kernel_tile_settings(tile, blk):
+    _tiled_vs_scan(24, 41, 40, tile=tile, blk=blk)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,n", [(256, 256, 256), (40, 2047, 70)])
+def test_tiled_kernel_compiled_on_gpu(m, k, n, gpu_device):
+    """The kernel as the GPU compiles it (no interpreter) against the scan;
+    runs with QUBLAS_TEST_BACKEND=cuda."""
+    _tiled_vs_scan(m, k, n, interpret=False)
+
+
+@pytest.mark.parametrize("m,k,n", [(64, 64, 64), (40, 47, 70), (8, 2047, 8)])
+def test_tiled_kernel_lowers_for_cuda(m, k, n):
+    """The kernel's Triton lowering runs without a card: a lowering error
+    (an op Triton cannot take) shows here, on the CPU."""
+    import jax
+    import jax.numpy as jnp
+
+    plan = tree_gemm.plan_tree(F88Z, F88Z, mul_merge(F88Z, F88Z), (), k,
+                               F88Z)
+    lowered = jax.jit(lambda a, b: tree_gemm.tree_gemm_tiled(
+        a, b, plan, F88Z)).trace(
+        jax.ShapeDtypeStruct((m, k), jnp.int32),
+        jax.ShapeDtypeStruct((k, n), jnp.int32)).lower(
+        lowering_platforms=("cuda",))
+    assert "tree_gemm_tiled" in lowered.as_text()
+
+
+@pytest.mark.parametrize("m,n,tile,want", [
+    (2048, 2048, 32, (32, 32, 2048, 2048)),
+    (5, 3, 32, (8, 4, 8, 4)),
+    (40, 70, 32, (32, 32, 64, 96)),
+    (1, 1, 32, (1, 1, 1, 1)),
+    (100, 17, 16, (16, 16, 112, 32)),
+])
+def test_tile_shape(m, n, tile, want):
+    assert tree_gemm.tile_shape(m, n, tile) == want
+
+
+def _gpu_dispatch(monkeypatch):
+    """Make qgemul see a GPU default backend and run the kernel in the
+    interpreter; returns the list of calls it made to the kernel."""
+    import jax
+
+    calls = []
+    kernel = tree_gemm.tree_gemm_tiled
+
+    def interpreted(*args, **kw):
+        calls.append(args[0].shape)
+        return kernel(*args, interpret=True, **kw)
+
+    monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
+    monkeypatch.setattr(tree_gemm, "tree_gemm_tiled", interpreted)
+    return calls
+
+
+@pytest.mark.parametrize("use_pallas,taken", [(None, True), (True, True),
+                                              (False, False)])
+def test_qgemul_takes_the_kernel_on_gpu(use_pallas, taken, monkeypatch):
+    calls = _gpu_dispatch(monkeypatch)
+    A = rng.randint(F88Z.raw_min, F88Z.raw_max + 1, (6, 19))
+    B = rng.randint(F88Z.raw_min, F88Z.raw_max + 1, (19, 5))
+    dev = qgemul(from_raw(A, F88Z), from_raw(B, F88Z), F88Z,
+                 use_pallas=use_pallas)
+    assert bool(calls) == taken
+    np.testing.assert_array_equal(np.asarray(dev.raw(), dtype=np.int64),
+                                  host_ref(A, B, F88Z, F88Z, F88Z))
+
+
+def test_qgemul_batched_kernel_on_gpu(monkeypatch):
+    calls = _gpu_dispatch(monkeypatch)
+    A = rng.randint(F88Z.raw_min, F88Z.raw_max + 1, (2, 3, 9))
+    B = rng.randint(F88Z.raw_min, F88Z.raw_max + 1, (2, 9, 4))
+    dev = np.asarray(qgemul(from_raw(A, F88Z), from_raw(B, F88Z),
+                            F88Z).raw(), dtype=np.int64)
+    assert calls
+    for i in range(2):
+        np.testing.assert_array_equal(dev[i],
+                                      host_ref(A[i], B[i], F88Z, F88Z, F88Z))
+
+
+def _virtual_mesh(dp):
+    import jax
+
+    from qublas_tpu.parallel import make_mesh
+
+    if len(jax.devices()) < 4:
+        pytest.skip("needs the virtual mesh")
+    return make_mesh(dp=dp, tp=4 // dp, devices=jax.devices()[:4])
+
+
+@pytest.mark.parametrize("dp", [1, 2])
+def test_sharded_mn_kernel_lowers_for_cuda(dp, monkeypatch):
+    """mn tiles run the kernel inside shard_map: its output must carry the
+    operands' varying mesh axes, and the sharded program lowers for the
+    GPU (the Pallas interpreter cannot run under this shard_map)."""
+    import jax
+    import jax.numpy as jnp
+
+    from qublas_tpu.parallel import shard_qgemul
+    from qublas_tpu.qtensor import QTensor
+
+    mesh = _virtual_mesh(dp)
+    monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
+    lowered = jax.jit(lambda a, b: shard_qgemul(
+        QTensor(a, F88Z), QTensor(b, F88Z), F88Z, mesh,
+        strategy="mn").data).trace(
+        jax.ShapeDtypeStruct((8, 64), jnp.int32),
+        jax.ShapeDtypeStruct((64, 8), jnp.int32)).lower(
+        lowering_platforms=("cuda",))
+    assert "tree_gemm_tiled" in lowered.as_text()
+
+
+def test_sharded_k_tree_takes_the_kernel_on_gpu(monkeypatch):
+    """k_tree's local folds run the kernel inside shard_map; bits match
+    the single-device scan."""
+    from qublas_tpu.parallel import shard_qgemul
+
+    mesh = _virtual_mesh(1)
+    calls = _gpu_dispatch(monkeypatch)
+    A = rng.randint(F88Z.raw_min, F88Z.raw_max + 1, (8, 64))
+    B = rng.randint(F88Z.raw_min, F88Z.raw_max + 1, (64, 8))
+    a, b = from_raw(A, F88Z), from_raw(B, F88Z)
+    got = shard_qgemul(a, b, F88Z, mesh, strategy="k_tree",
+                       add_formats=(F88Z,))
+    assert calls
+    want = qgemul(a, b, F88Z, add_formats=(F88Z,), use_pallas=False)
+    np.testing.assert_array_equal(np.asarray(got.raw()),
+                                  np.asarray(want.raw()))
+
+
+def test_qgemul_stays_on_scan_off_gpu():
+    """On any other backend qgemul never reaches the kernel (no interpret
+    mode on its own)."""
+    import jax
+
+    from qublas_tpu.qtensor import QTensor
+
+    assert jax.default_backend() != "gpu"
+    jaxpr = str(jax.make_jaxpr(lambda a, b: qgemul(
+        QTensor(a, F88Z), QTensor(b, F88Z), F88Z).data)(
+        np.zeros((4, 8), np.int32), np.zeros((8, 4), np.int32)))
+    assert "pallas_call" not in jaxpr and "scan" in jaxpr
 
 
 def test_plan_rejects_host_only_formats():
@@ -130,7 +271,7 @@ def test_batched_scan():
 
 
 # ---------------------------------------------------------------------------
-# Prefix-lossless hybrid (MXU block dots + VPU tail) — round-2 feature
+# Prefix-lossless hybrid (block integer dots + elementwise tail)
 # ---------------------------------------------------------------------------
 
 def _hybrid_cfg():
@@ -146,7 +287,7 @@ def _hybrid_cfg():
 
 @pytest.mark.parametrize("k", [16, 48, 64, 80, 176])
 def test_hybrid_matches_oracle(k):
-    """Hybrid plan (lossless prefix -> MXU dots, lossy tail -> VPU folds)
+    """Hybrid plan (lossless prefix -> block dots, lossy tail -> folds)
     must be bit-identical to the host golden tree, incl. odd block counts."""
     from qublas_tpu.qformat import mul_merge
 
@@ -171,7 +312,7 @@ def test_hybrid_matches_oracle(k):
 
 def test_hybrid_with_frac_growth_shift():
     """Prefix layers that raise frac precision (dl > 0) stay exact: the
-    MXU dot is shifted into the level format's scale."""
+    block dot is shifted into the level format's scale."""
     from qublas_tpu.qformat import OverflowMode, mul_merge, qformat
 
     fa = fb = qformat(3, 4)
@@ -199,7 +340,7 @@ def test_hybrid_with_frac_growth_shift():
 
 def test_hybrid_not_planned_for_immediately_lossy():
     """The canonical config (product quantize drops bits) must not plan a
-    hybrid — it stays on the blocked/scan tree kernels."""
+    hybrid — it stays on the tiled/scan tree kernels."""
     from qublas_tpu.qformat import OverflowMode, mul_merge, qformat
 
     f = qformat(8, 8, overflow_mode=OverflowMode.SAT_ZERO)

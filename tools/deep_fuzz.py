@@ -12,7 +12,7 @@ prints a self-contained repro line.
 Usage:  python tools/deep_fuzz.py [trials-per-family]   (default 1000;
         ~2 min per 1000 on CPU).  Exit code 1 on any mismatch.
 
-Round-2 catch: the WRP::TCPL_SAT machine-word-wrap hole in the MXU
+Round-2 catch: the WRP::TCPL_SAT machine-word-wrap hole in the integer-matmul
 exactness proof (ops/gemm.py _identity_range) fell out of this sweep.
 """
 
